@@ -22,6 +22,10 @@ def main(argv=None):
     ap.add_argument("-k", "--topk", type=int, default=2)
     args = ap.parse_args(argv)
 
+    from opticalflowclustering_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+
     import cv2
     import numpy as np
 

@@ -21,6 +21,10 @@ def main(argv=None):
     ap.add_argument("-f", "--csv", required=True, type=str)
     args = ap.parse_args(argv)
 
+    from opticalflowclustering_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+
     import cv2
 
     from opticalflowclustering_tpu.compat.writers import (

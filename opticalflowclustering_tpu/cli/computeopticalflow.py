@@ -18,16 +18,17 @@ def main(argv=None):
     ap.add_argument("--max-frames", type=int, default=None)
     ap.add_argument(
         "--warp-mode",
-        choices=("fast", "fast16", "exact", "select"),
-        default="fast",
-        help="flow-warp implementation: 'fast' = fused Pallas kernels "
-        "(~1e-5 px EPE vs cv2, production default); 'fast16' = the same "
-        "kernels with bf16-pair packed gathers (40%% fewer takes, "
-        "0.0043 px EPE); 'exact' = bit-faithful "
-        "XLA gather; 'select' = legacy gather-free warp, INEXACT at motion "
-        "discontinuities (0.1-1 px EPE), kept for comparison only",
+        choices=("exact", "select"),
+        default="exact",
+        help="flow-warp implementation: 'exact' = bit-faithful bilinear "
+        "gather (default); 'select' = legacy gather-free warp, INEXACT at "
+        "motion discontinuities (0.1-1 px EPE), kept for comparison only",
     )
     args = ap.parse_args(argv)
+
+    from opticalflowclustering_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from opticalflowclustering_tpu.compat.writers import write_optical_flow_csv
     from opticalflowclustering_tpu.flow.farneback import FarnebackParams

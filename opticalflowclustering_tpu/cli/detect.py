@@ -23,6 +23,10 @@ def main(argv=None):
     ap.add_argument("-o", "--output", default=None)
     args = ap.parse_args(argv)
 
+    from opticalflowclustering_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+
     import cv2
 
     from opticalflowclustering_tpu.models.flow_cnn import (

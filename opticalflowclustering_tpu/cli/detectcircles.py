@@ -58,6 +58,11 @@ def main(argv: list[str] | None = None) -> int:
     from opticalflowclustering_tpu.ops.hough import hough_circles
 
     args = build_parser().parse_args(argv)
+
+    from opticalflowclustering_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+
     image = cv2.imread(args.image)
     if image is None:
         print(f"cannot read {args.image}")

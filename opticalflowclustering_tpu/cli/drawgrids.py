@@ -35,6 +35,10 @@ def main(argv=None):
     ap.add_argument("--max-frames", type=int, default=None)
     args = ap.parse_args(argv)
 
+    from opticalflowclustering_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+
     from opticalflowclustering_tpu.compat.writers import write_rgb_values_csv
     from opticalflowclustering_tpu.features.grid import GridParams
     from opticalflowclustering_tpu.io.video import (

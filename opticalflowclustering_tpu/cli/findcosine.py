@@ -5,19 +5,32 @@ printed lines: vector sizes, max cosine similarity, the vestigial
 
 from __future__ import annotations
 
+import csv
 import sys
+
+import numpy as np
+
+
+def _second_column(path: str) -> np.ndarray:
+    """Column 1 of a header-less CSV (the reference reads it with
+    `pd.read_csv(path, header=None).iloc[:, 1]`)."""
+    with open(path, newline="") as f:
+        return np.array([float(row[1]) for row in csv.reader(f) if row])
 
 
 def main(argv=None):
     argv = argv if argv is not None else sys.argv[1:]
-    file1_name, nobounce_name = argv[0], argv[1]
 
-    import pandas as pd
+    from opticalflowclustering_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+
+    file1_name, nobounce_name = argv[0], argv[1]
 
     from opticalflowclustering_tpu.pipeline.bounce import classify_bounce
 
-    file1_hue = pd.read_csv(file1_name, header=None).iloc[:, 1].values
-    nobounce_hue = pd.read_csv(nobounce_name, header=None).iloc[:, 1].values
+    file1_hue = _second_column(file1_name)
+    nobounce_hue = _second_column(nobounce_name)
 
     print("Vector sizes are: ", len(file1_hue), len(nobounce_hue))
     sim, frame = classify_bounce(file1_hue, nobounce_hue)

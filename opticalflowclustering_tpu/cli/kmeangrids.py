@@ -45,21 +45,23 @@ def parse_arguments(argv=None):
     )
     ap.add_argument(
         "--warp-mode",
-        choices=("fast", "fast16", "exact", "select"),
-        default="fast",
+        choices=("exact", "select"),
+        default="exact",
         help="flow-warp implementation (flow.farneback.FarnebackParams): "
-        "'fast' is the fused Pallas kernel suite (~1e-5 px EPE vs cv2, "
-        "the production default); 'fast16' the same kernels with "
-        "bf16-pair packed gathers (40%% fewer takes, 0.0043 px EPE); "
-        "'exact' the bit-faithful XLA gather; "
-        "'select' the legacy gather-free warp — INEXACT at motion "
-        "discontinuities (0.1-1 px EPE), kept for comparison only",
+        "'exact' the bit-faithful bilinear gather (default); 'select' the "
+        "legacy gather-free warp — INEXACT at motion discontinuities "
+        "(0.1-1 px EPE), kept for comparison only",
     )
     return vars(ap.parse_args(argv))
 
 
 def main(argv=None):
     args = parse_arguments(argv)
+
+    from opticalflowclustering_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+
     rb_swap = not args["no_rb_swap"]
 
     from opticalflowclustering_tpu.compat.writers import (

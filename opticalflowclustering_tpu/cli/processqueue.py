@@ -5,7 +5,7 @@ shell loop over single-video script invocations
 process).
 
   python -m opticalflowclustering_tpu.cli.processqueue v1.mp4 v2.avi ... \
-      -o features/ [--dp 4 --sp 2] [--no-resume] [--warp-mode fast]
+      -o features/ [--dp 4 --sp 2] [--no-resume]
 
 Sequential by default (single device, retry + .npz resume). With
 `--dp/--sp` a dp×sp `jax.sharding.Mesh` over the available devices runs
@@ -36,12 +36,12 @@ def main(argv=None):
     ap.add_argument("--no-resume", action="store_true")
     ap.add_argument("--addnew", default=None,
                     help="also append per-cell addnew rows to this CSV")
-    ap.add_argument(
-        "--warp-mode", choices=("fast", "fast16", "exact"), default="fast"
-    )
     args = ap.parse_args(argv)
 
-    from opticalflowclustering_tpu.flow.farneback import FarnebackParams
+    from opticalflowclustering_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+
     from opticalflowclustering_tpu.pipeline.bounce import PipelineConfig
     from opticalflowclustering_tpu.pipeline.queue import (
         load_features,
@@ -49,10 +49,7 @@ def main(argv=None):
         process_video_queue_dp,
     )
 
-    cfg = PipelineConfig(
-        emit_flow_bgr=False,
-        flow=FarnebackParams(warp_mode=args.warp_mode),
-    )
+    cfg = PipelineConfig(emit_flow_bgr=False)
     resume = not args.no_resume
     if args.dp > 0:
         import jax

@@ -27,6 +27,10 @@ def main(argv=None):
     ap.add_argument("--max-frames", type=int, default=None)
     args = ap.parse_args(argv)
 
+    from opticalflowclustering_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+
     import cv2
     import numpy as np
 

@@ -13,6 +13,10 @@ def main(argv=None):
     ap.add_argument("-o", "--out", default="scanned")
     args = ap.parse_args(argv)
 
+    from opticalflowclustering_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+
     import cv2
 
     from opticalflowclustering_tpu.extras.document_scanner import scan_document

@@ -27,6 +27,10 @@ def main(argv=None):
     sp.add_argument("-k", type=int, default=10)
     args = ap.parse_args(argv)
 
+    from opticalflowclustering_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+
     import cv2
 
     from opticalflowclustering_tpu.extras.search_engine import (

@@ -18,6 +18,10 @@ def main(argv=None):
     ap.add_argument("--segments", type=int, nargs="+", default=[100, 200, 300])
     args = ap.parse_args(argv)
 
+    from opticalflowclustering_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+
     import cv2
 
     from opticalflowclustering_tpu.ops.slic import mark_boundaries, slic

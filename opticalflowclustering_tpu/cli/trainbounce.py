@@ -53,6 +53,10 @@ def main(argv=None):
     ap.add_argument("--out", default="bounce_params.npz")
     args = ap.parse_args(argv)
 
+    from opticalflowclustering_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+
     import jax
     import jax.numpy as jnp
 

@@ -15,6 +15,10 @@ def main(argv=None):
     ap.add_argument("file2", nargs="?", default="file2.csv")
     args = ap.parse_args(argv)
 
+    from opticalflowclustering_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+
     import numpy as np
 
     from opticalflowclustering_tpu.cluster.matcher import (

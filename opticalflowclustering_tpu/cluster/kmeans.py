@@ -1,9 +1,9 @@
-"""Batched Lloyd k-means on TPU.
+"""Batched Lloyd k-means in JAX.
 
 The reference runs `sklearn.cluster.KMeans(n_clusters=c).fit` on every
 grid cell's pixels — 350 separate native calls per frame
 (`KmeanGrids.py:300-304`, `color_kmeans.py:66-78`). Here one call clusters
-every cell of every frame: assignment is a [P,k] distance matmul on the MXU,
+every cell of every frame: assignment is a [P,k] distance matmul,
 the update is a one-hot matmul, and the whole Lloyd loop is a `lax.fori_loop`
 vmapped over the batch.
 
@@ -24,10 +24,15 @@ import numpy as np
 
 
 def _pairwise_sqdist(x: jnp.ndarray, c: jnp.ndarray) -> jnp.ndarray:
-    """[P,D],[K,D] → [P,K] squared distances via the MXU."""
+    """[P,D],[K,D] → [P,K] squared distances as one matmul. Full f32
+    precision: a TF32 product can flip the argmin between near-equidistant
+    centers."""
     x2 = jnp.sum(x * x, axis=-1, keepdims=True)
     c2 = jnp.sum(c * c, axis=-1)
-    xc = jnp.dot(x, c.T, preferred_element_type=jnp.float32)
+    xc = jnp.dot(
+        x, c.T, preferred_element_type=jnp.float32,
+        precision=jax.lax.Precision.HIGHEST,
+    )
     return x2 - 2.0 * xc + c2[None, :]
 
 
@@ -104,7 +109,10 @@ def kmeans(
         labels = jnp.argmin(d2, axis=-1)
         onehot = jax.nn.one_hot(labels, k, dtype=jnp.float32)  # [P,k]
         counts = jnp.sum(onehot, axis=0)  # [k]
-        sums = jnp.dot(onehot.T, x, preferred_element_type=jnp.float32)
+        sums = jnp.dot(
+            onehot.T, x, preferred_element_type=jnp.float32,
+            precision=jax.lax.Precision.HIGHEST,
+        )
         new = sums / jnp.maximum(counts[:, None], 1.0)
         new = jnp.where(counts[:, None] > 0, new, centers)
         if relocate_empty:
@@ -178,7 +186,7 @@ def minibatch_kmeans(
     explicit `init` (sklearn's ``init=<array>``) the converged centers
     agree to a few LAB units (tests/test_features_cluster.py pins both
     the ratio=0 and the default-config comparisons). The whole run is
-    one jitted lax.scan; assignment and update are MXU matmuls.
+    one jitted lax.scan; assignment and update are matmuls.
     """
     x = points.astype(jnp.float32)
     if key is None:
@@ -204,7 +212,10 @@ def minibatch_kmeans(
         labels = jnp.argmin(d2, axis=-1)
         onehot = jax.nn.one_hot(labels, k, dtype=jnp.float32)
         nc = jnp.sum(onehot, axis=0)  # [k] batch counts
-        sums = jnp.dot(onehot.T, xb, preferred_element_type=jnp.float32)
+        sums = jnp.dot(
+            onehot.T, xb, preferred_element_type=jnp.float32,
+            precision=jax.lax.Precision.HIGHEST,
+        )
         new_w = wsum + nc
         new_c = (wsum[:, None] * centers + sums) / jnp.maximum(
             new_w[:, None], 1.0

@@ -29,7 +29,11 @@ def sliding_cosine_similarity(
     num_windows = n - l + 1
     idx = jnp.arange(num_windows)[:, None] + jnp.arange(l)[None, :]
     windows = ser[idx]  # [W, L]
-    dots = jnp.dot(windows, sig, preferred_element_type=jnp.float32)
+    # Full f32: in TF32 a near tie between windows can flip the chosen frame.
+    dots = jnp.dot(
+        windows, sig, preferred_element_type=jnp.float32,
+        precision=jax.lax.Precision.HIGHEST,
+    )
     sig_norm = jnp.sqrt(jnp.sum(sig * sig))
     win_norm = jnp.sqrt(jnp.sum(windows * windows, axis=-1))
     denom = sig_norm * win_norm
@@ -57,7 +61,10 @@ def cosine_similarity_matrix(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
     b = b.astype(jnp.float32)
     an = a / jnp.maximum(jnp.linalg.norm(a, axis=-1, keepdims=True), 1e-30)
     bn = b / jnp.maximum(jnp.linalg.norm(b, axis=-1, keepdims=True), 1e-30)
-    return jnp.dot(an, bn.T, preferred_element_type=jnp.float32)
+    return jnp.dot(
+        an, bn.T, preferred_element_type=jnp.float32,
+        precision=jax.lax.Precision.HIGHEST,
+    )
 
 
 def rowwise_euclidean_sum(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:

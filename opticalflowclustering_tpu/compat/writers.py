@@ -1,8 +1,9 @@
 """Byte-compatible output-contract writers.
 
 The reference's downstream consumers read its CSV artifacts, so formats are
-preserved down to pandas quirks and numpy stringification (SURVEY.md §2.1
-'data artifacts'):
+preserved down to the reference's pandas `to_csv` layout and numpy
+stringification (SURVEY.md §2.1 'data artifacts'), written here with the
+standard library alone:
 
 - `OutCSV/<video>.csv` (`KmeanGrids.py:394-399`): header `cell_0..cell_N-1`
   once, integer hue rows appended per frame.
@@ -14,6 +15,9 @@ preserved down to pandas quirks and numpy stringification (SURVEY.md §2.1
   `str(cv2.cvtColor(...))`.
 - `<video>_opticalFlow.csv` (`computeOpticalFlow.py:146-149`): pandas
   default-index frame/mean-magnitude telemetry.
+
+Floats are written as pandas writes float64 columns: the shortest repr that
+round-trips (`repr(float)`), NaN as an empty field.
 """
 
 from __future__ import annotations
@@ -22,7 +26,17 @@ import csv
 import os
 
 import numpy as np
-import pandas as pd
+
+
+def _float_field(v: float) -> str:
+    return "" if v != v else repr(float(v))
+
+
+def _write_rows(path: str, header: list[str], rows) -> None:
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f, lineterminator="\n")
+        w.writerow(header)
+        w.writerows(rows)
 
 
 def write_hue_table_csv(path: str, hue_table: np.ndarray) -> None:
@@ -31,15 +45,16 @@ def write_hue_table_csv(path: str, hue_table: np.ndarray) -> None:
     hue_table = np.asarray(hue_table)
     cols = [f"cell_{i}" for i in range(hue_table.shape[1])]
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    df = pd.DataFrame(hue_table.astype(np.int64), columns=cols)
-    df.to_csv(path, index=False)
+    _write_rows(path, cols, hue_table.astype(np.int64).tolist())
 
 
 def write_rgb_values_csv(path: str, hue_table: np.ndarray) -> None:
     """`*_rgb_values.csv` contract: float hue strings, header once."""
     hue_table = np.asarray(hue_table, dtype=np.float64)
     cols = [f"cell_{i}" for i in range(hue_table.shape[1])]
-    pd.DataFrame(hue_table, columns=cols).to_csv(path, index=False)
+    _write_rows(
+        path, cols, ([_float_field(v) for v in row] for row in hue_table.tolist())
+    )
 
 
 def append_cluster_centers_rows(
@@ -86,7 +101,8 @@ def write_optical_flow_csv(path: str, mean_magnitudes: np.ndarray) -> None:
     """`<input>_opticalFlow.csv`: pandas frame with default index,
     columns Frame / Average Magnitude (`computeOpticalFlow.py:146-149`)."""
     mags = np.asarray(mean_magnitudes, dtype=np.float64)
-    df = pd.DataFrame(
-        {"Frame": np.arange(len(mags)), "Average Magnitude": mags}
+    _write_rows(
+        path,
+        ["", "Frame", "Average Magnitude"],
+        ([i, i, _float_field(m)] for i, m in enumerate(mags.tolist())),
     )
-    df.to_csv(path)

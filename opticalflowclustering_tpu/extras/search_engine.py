@@ -8,7 +8,7 @@
   all images' histograms in one device call, persisted as .npz instead of
   cPickle.
 
-TPU-native: the whole index search is ONE [Q, D] × [N, D] chi² broadcast,
+On the device the whole index search is ONE [Q, D] × [N, D] chi² broadcast,
 not a Python loop over the index.
 """
 

@@ -1,4 +1,4 @@
-"""Farneback dense optical flow, TPU-native.
+"""Farneback dense optical flow in JAX.
 
 Re-implementation of the algorithm behind `cv2.calcOpticalFlowFarneback`
 (the dominant cost of the reference pipeline —
@@ -48,33 +48,12 @@ class FarnebackParams:
     reference's exact call (`computeOpticalFlowModule.py:20-22`).
 
     warp_mode selects the flow-warp implementation inside the local-system
-    rebuild (the pipeline's hottest op — ~98% of runtime as an XLA gather):
+    rebuild:
       'exact'  — per-pixel bilinear gather, bit-faithful to OpenCV.
-      'fast'   — fused Pallas warp+M-build kernels (kernels/warp.py):
-                 vertical and horizontal bilinear sampling as vectorized
-                 128-lane gathers, VMEM-resident. Separable contract: the
-                 vertical interpolation consumed at column x1 used the flow
-                 at (y, x1), not (y, x) — deviation needs |dx| large AND dy
-                 varying there; measured ~0 EPE vs OpenCV on real footage.
-                 Displacement reach ±127 px per axis, beyond which OpenCV's
-                 own out-of-image constant-motion fallback applies. On
-                 non-TPU backends runs the bitwise-equal XLA emulation.
-      'fast16' — 'fast' with r1's channels 0–3 bf16-packed in pairs per
-                 f32 vreg (kernels/warp.py pack_r1_pairs): 40% fewer
-                 candidate lane-gathers and 40% smaller window DMAs —
-                 the takes are the kernel's dominant cost. Quantization
-                 cost, canonical number: worst mean EPE 0.0043 px vs cv2
-                 over the bench's 27-pair real-footage set on chip
-                 (bench.py real_pairs, BENCH_r04+; exact path 1e-5;
-                 target < 0.1). The 3-pair CPU-backend test subset
-                 measures 0.0018 px (tests/test_pallas_warp.py) — a
-                 smaller set, not a contradiction. Non-TPU backends run
-                 the value-identical quantize-then-exact-gather
-                 emulation.
-      'select' — legacy gather-free select-warp (shifted-copy where-chains,
-                 round 1's fast mode): exact for displacements within
-                 ±warp_radius whose integer part is locally smooth; the
-                 where-chains don't fuse, so it is HBM-bound.
+      'select' — legacy gather-free select-warp (shifted-copy where-chains):
+                 exact for displacements within ±warp_radius whose integer
+                 part is locally smooth; the where-chains don't fuse, so it
+                 is bound by memory traffic.
     """
 
     pyr_scale: float = 0.5
@@ -84,10 +63,6 @@ class FarnebackParams:
     poly_n: int = 5
     poly_sigma: float = 1.2
     gaussian_win: bool = False  # OPTFLOW_FARNEBACK_GAUSSIAN
-    # Library default is the bit-faithful path; the production CLIs
-    # (computeopticalflow/kmeangrids) pass warp_mode='fast' explicitly —
-    # the exact Pallas kernel suite, ~1e-5 px EPE vs cv2 (README "Warp
-    # modes"). Parity/oracle tests rely on this default staying 'exact'.
     warp_mode: str = "exact"
     warp_radius: int = 32  # 'select' mode only
 
@@ -133,13 +108,8 @@ def _poly_exp_consts(n: int, sigma: float):
     )
 
 
-def poly_expansion(
-    img: jnp.ndarray, n: int, sigma: float, channel_first: bool = False
-) -> jnp.ndarray:
-    """Quadratic polynomial expansion of [..., H, W] → [..., H, W, 5]
-    (or [..., 5, H, W] with channel_first=True — the layout the fused
-    Pallas kernels consume, emitted directly so no [B,H,W,5]→[B,5,H,W]
-    transpose of the full tensor is materialized per pyramid level).
+def poly_expansion(img: jnp.ndarray, n: int, sigma: float) -> jnp.ndarray:
+    """Quadratic polynomial expansion of [..., H, W] → [..., H, W, 5].
 
     Channels (OpenCV layout): 0: y-linear, 1: x-linear, 2: y², 3: x², 4: xy
     coefficients of the local signal model f(x) ≈ xᵀAx + bᵀx + c.
@@ -206,7 +176,7 @@ def poly_expansion(
             b4 * f32(ig33) + b1 * f32(ig03),
             b6 * f32(ig55),
         ],
-        axis=-3 if channel_first else -1,
+        axis=-1,
     )
 
 
@@ -226,31 +196,22 @@ def _border_taper(h: int, w: int) -> np.ndarray:
 
 
 def _warp_gather(r1: jnp.ndarray, y1c, x1c, fx, fy) -> jnp.ndarray:
-    """Exact bilinear warp (OpenCV-faithful).
-
-    TPU gathers are scalar-fetch bound (~per-index cost), so the four
-    corners are packed contiguously ([..., H, W, 4C] built from shifted
-    copies) and fetched with ONE take per pixel — measured 2× faster than
-    four separate corner takes at 720p. r1: [..., H, W, C]."""
-    h, w, c = r1.shape[-3], r1.shape[-2], r1.shape[-1]
+    """Exact bilinear warp (OpenCV-faithful): one take per corner from the
+    flattened [B·Hs·W, C] coefficients. r1: [..., Hs, W, C] source;
+    y1c/x1c/fx/fy: [..., H, W] output grid, with y1c ≤ Hs-2 and x1c ≤ W-2
+    so the +1 corners stay inside the source."""
+    hs, w, c = r1.shape[-3], r1.shape[-2], r1.shape[-1]
+    h = y1c.shape[-2]
     lead = r1.shape[:-3]
     b = int(np.prod(lead)) if lead else 1
-    right = jnp.concatenate([r1[..., :, 1:, :], r1[..., :, -1:, :]], axis=-2)
-    down = jnp.concatenate([r1[..., 1:, :, :], r1[..., -1:, :, :]], axis=-3)
-    downright = jnp.concatenate(
-        [down[..., :, 1:, :], down[..., :, -1:, :]], axis=-2
-    )
-    packed = jnp.concatenate([r1, right, down, downright], axis=-1)
-    pf = packed.reshape(b * h * w, 4 * c)
-    boff = (jnp.arange(b, dtype=jnp.int32) * (h * w)).reshape(
-        (b,) + (1,) * 2
-    )
+    flat = r1.reshape(b * hs * w, c)
+    boff = (jnp.arange(b, dtype=jnp.int32) * (hs * w)).reshape((b, 1, 1))
     base = ((y1c * w + x1c).reshape(b, h, w) + boff).reshape(-1)
-    g = jnp.take(pf, base, axis=0).reshape(lead + (h, w, 4, c))
-    p00 = g[..., 0, :]
-    p01 = g[..., 1, :]
-    p10 = g[..., 2, :]
-    p11 = g[..., 3, :]
+
+    def corner(off):
+        return jnp.take(flat, base + off, axis=0).reshape(lead + (h, w, c))
+
+    p00, p01, p10, p11 = corner(0), corner(1), corner(w), corner(w + 1)
     fxe = fx[..., None]
     fye = fy[..., None]
     return (
@@ -264,7 +225,7 @@ def _warp_gather(r1: jnp.ndarray, y1c, x1c, fx, fy) -> jnp.ndarray:
 def _warp_select(r1: jnp.ndarray, y1i, x1i, fx, fy, radius: int) -> jnp.ndarray:
     """Gather-free separable select-warp (warp_mode='select'): the integer
     displacement picks from shifted array copies via per-pixel masks —
-    pure VPU traffic. See FarnebackParams.warp_mode for the accuracy
+    pure elementwise traffic. See FarnebackParams.warp_mode for the accuracy
     contract. Out-of-range displacements clamp; callers discard those
     pixels through the out-of-bounds fallback mask anyway.
     r1: [..., H, W, C]."""
@@ -297,9 +258,8 @@ def _warp_select(r1: jnp.ndarray, y1i, x1i, fx, fy, radius: int) -> jnp.ndarray:
 
 
 def _m_build(r0c, r1wc, dx, dy, inb, taper):
-    """Normal-equation products from warped coefficients — shared verbatim
-    by the XLA paths here and the fused Pallas kernel (kernels/warp.py), so
-    every warp mode produces M through the identical op sequence.
+    """Normal-equation products from warped coefficients, shared by both
+    warp modes so each produces M through the identical op sequence.
 
     r0c, r1wc: 5-tuples of per-channel arrays; returns the 5 M channels
     (G11, G12, G22, h1, h2). In-bounds pixels average the quadratic terms;
@@ -343,24 +303,7 @@ def update_matrices(
     the quadratic coefficients, forms the normal equations of
     A·d = Δb, and tapers the 5-px border.
     r0, r1: [..., H, W, 5]; flow: [..., H, W, 2] (x,y) → [..., H, W, 5].
-
-    warp_mode='fast' is handled by the fused kernel suite in kernels/warp.py
-    (dispatched from farneback_flow); this function covers 'exact' and the
-    legacy 'select' mode.
     """
-    if warp_mode in ("fast", "fast16"):
-        from opticalflowclustering_tpu.kernels.warp import (
-            quantize_r1_fast16,
-            update_matrices_gather,
-        )
-
-        if warp_mode == "fast16":
-            # The packed kernel's unpack is exact bf16 widening, so the
-            # non-TPU path reproduces its values exactly: quantize r1's
-            # channels 0–3 through bf16, then the same exact gather.
-            r1 = quantize_r1_fast16(r1)
-        return update_matrices_gather(r0, r1, flow)
-
     f32 = jnp.float32
     h, w = flow.shape[-3], flow.shape[-2]
     dx = flow[..., 0]
@@ -470,83 +413,35 @@ def farneback_flow(
     prev_f = prev_img.astype(jnp.float32)
     next_f = next_img.astype(jnp.float32)
 
-    # 'fast' dispatch: fused Pallas kernels (warp + M-build + box-solve,
-    # kernels/warp.py) on TPU; their bitwise-equivalent XLA emulation
-    # elsewhere (tests and CPU runs). The Gaussian-window variant keeps the
-    # XLA solve (the reference never sets OPTFLOW_FARNEBACK_GAUSSIAN).
-    # The fused solve kernel's DMA halo covers a box radius of 8 rows/lanes
-    # (winsize ≤ 17); larger windows (the reference never uses one — its
-    # call is winsize=15) fall back to the XLA path.
-    fused_tpu = (
-        params.warp_mode in ("fast", "fast16")
-        and jax.default_backend() == "tpu"
-        and not params.gaussian_win
-        and params.winsize <= 17
-    )
-    if fused_tpu:
-        from opticalflowclustering_tpu.kernels import warp as kw
-
     flow = None
     for k, h_k, w_k, sigma in plan:
         smooth_sz = max(_cvround(sigma * 5) | 1, 3)
         levels_imgs = []
-        for img in (prev_f, next_f):
-            sm = gaussian_blur(img, smooth_sz, sigma, border="reflect101")
-            levels_imgs.append(resize_linear(sm, (h_k, w_k)))
-        # The fused kernels consume channel-first planes — emit them
-        # directly rather than transposing the full tensor per level.
-        r0 = poly_expansion(
-            levels_imgs[0], params.poly_n, params.poly_sigma,
-            channel_first=fused_tpu,
-        )
-        r1 = poly_expansion(
-            levels_imgs[1], params.poly_n, params.poly_sigma,
-            channel_first=fused_tpu,
-        )
+        with jax.named_scope("pyramid"):
+            for img in (prev_f, next_f):
+                sm = gaussian_blur(img, smooth_sz, sigma, border="reflect101")
+                levels_imgs.append(resize_linear(sm, (h_k, w_k)))
+        with jax.named_scope("poly_expansion"):
+            r0 = poly_expansion(levels_imgs[0], params.poly_n, params.poly_sigma)
+            r1 = poly_expansion(levels_imgs[1], params.poly_n, params.poly_sigma)
 
         if flow is None:
-            flow = None if fused_tpu else jnp.zeros(
-                lead + (h_k, w_k, 2), jnp.float32
-            )
+            flow = jnp.zeros(lead + (h_k, w_k, 2), jnp.float32)
         else:
             flow = resize_linear_flow(flow, (h_k, w_k)) * jnp.float32(
                 1.0 / params.pyr_scale
             )
 
-        if fused_tpu:
-            # Transposes/pads of r0/r1 are iteration-invariant — prepared
-            # once per level; the iteration loop moves flow between kernels
-            # as padded planes with no pad/slice/transpose copies.
-            bufs = kw.prepare_fused_level_cf(
-                r0, r1, pack16=params.warp_mode == "fast16"
-            )
-            if flow is None:
-                fxp, fyp = kw.zero_flow_planes(bufs)
-            else:
-                fxp, fyp = kw.pad_flow_planes(bufs, flow)
-            # The default 16-row candidate chunk is fastest at every level:
-            # flow *slope* (not magnitude) sets a chunk's vertical candidate
-            # range, and slope does not shrink at coarse levels — 32-row
-            # coarse chunks measured slower (bench 140.9 vs 148.6 fps).
-            mpad = kw.fused_m_planes(bufs, fxp, fyp)
-            for i in range(params.iterations):
-                fxp, fyp = kw.fused_solve(bufs, mpad, params.winsize)
-                if i < params.iterations - 1:
-                    mpad = kw.fused_m_planes(bufs, fxp, fyp)
-            flow = kw.planes_to_flow(bufs, fxp, fyp)
-        else:
-            # Flow values at level k are in level-k pixels (≈ motion / 2^k),
-            # so the bounded select-warp needs proportionally less vertical
-            # reach at coarse levels — halve the radius per level, floor 8.
-            radius_k = max(8, params.warp_radius >> k)
+        # Flow values at level k are in level-k pixels (≈ motion / 2^k),
+        # so the bounded select-warp needs proportionally less vertical
+        # reach at coarse levels — halve the radius per level, floor 8.
+        radius_k = max(8, params.warp_radius >> k)
 
-            m = update_matrices(r0, r1, flow, params.warp_mode, radius_k)
-            for i in range(params.iterations):
+        for i in range(params.iterations):
+            with jax.named_scope("update_matrices"):
+                m = update_matrices(r0, r1, flow, params.warp_mode, radius_k)
+            with jax.named_scope("update_flow"):
                 flow = _update_flow(m, params.winsize, params.gaussian_win)
-                if i < params.iterations - 1:
-                    m = update_matrices(
-                        r0, r1, flow, params.warp_mode, radius_k
-                    )
     return flow
 
 

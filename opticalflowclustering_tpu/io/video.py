@@ -1,7 +1,7 @@
 """Host media boundary: video decode/encode.
 
 Decode happens once on the host (OpenCV's native demuxer), producing one
-batched uint8 array that crosses to the device a single time — the TPU-native
+batched uint8 array that crosses to the device a single time — the
 replacement for the reference's frame-at-a-time `cap.read()` loop
 (`KmeanGrids.py:156,180-185`). Encode mirrors `cv2.VideoWriter` with the
 reference's MJPG fourcc (`computeOpticalFlow.py:27-33`).

@@ -30,7 +30,7 @@ class BounceClassifier(nn.Module):
     """MLP over hue feature vectors (scalar-hue windows or grid-hue rows).
 
     Hues are circular (uint8 degrees/2 in [0,180)); the input embedding maps
-    each hue to (sin, cos) of its angle so 179≈0 — a TPU-friendly fix for
+    each hue to (sin, cos) of its angle so 179≈0 — a fix for
     the discontinuity the reference's raw cosine matching inherits.
     """
 

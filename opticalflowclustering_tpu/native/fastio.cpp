@@ -1,8 +1,7 @@
 // Native host-IO runtime: threaded batch PNG decode and MJPEG-AVI
 // demux/decode straight into one preallocated uint8 batch buffer.
 //
-// This is the framework's C++ data-loader layer — the TPU-native
-// counterpart of the native decode the reference gets implicitly from
+// This is the framework's C++ data-loader layer — the counterpart of the native decode the reference gets implicitly from
 // OpenCV's C++ core (`cv2.imread` per cell PNG in
 // `k-means-color-clustering/color_kmeansChange.py:147-159`, `cv2.
 // VideoCapture` in `KmeanGrids.py:156`). The Python boundary stays thin:

@@ -140,9 +140,8 @@ def hsv2bgr(hsv: jnp.ndarray) -> jnp.ndarray:
     f = h - sector.astype(f32)
 
     tab = (v, v * (1 - s), v * (1 - s * f), v * (1 - s * (1 - f)))
-    # Sector-table lookup as elementwise selects (a gather here tiles
-    # catastrophically on TPU — 42× padding); 6 sectors × 3 channels of
-    # jnp.where fuse into one VPU pass.
+    # Sector-table lookup as elementwise selects: 6 sectors × 3 channels
+    # of jnp.where fuse into one elementwise pass, with no gather.
     channels = []
     for ch in range(3):
         val = tab[_SECTOR_DATA[0][ch]]

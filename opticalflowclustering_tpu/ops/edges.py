@@ -9,7 +9,7 @@ Sobel/Scharr are separable shifted-slice correlations (REFLECT_101 border,
 like OpenCV). Canny is the full pipeline — Sobel gradients, 4-direction
 non-maximum suppression, double threshold, and hysteresis as an iterative
 8-neighbor dilation over the strong-edge mask (a bounded `lax.while_loop`
-fixpoint — the TPU-friendly formulation of OpenCV's BFS stack).
+fixpoint — the data-parallel formulation of OpenCV's BFS stack).
 """
 
 from __future__ import annotations
@@ -94,7 +94,7 @@ def canny(
       cv2's tie rules — (>, ≥) for the horizontal/vertical sectors and
       STRICT > on both diagonal neighbors;
     * hysteresis to fixpoint via iterative strong-edge propagation over
-      the weak mask (a bounded `lax.while_loop` — the TPU formulation of
+      the weak mask (a bounded `lax.while_loop` — the data-parallel form of
       OpenCV's BFS stack), zero magnitude outside the image.
     """
     import math

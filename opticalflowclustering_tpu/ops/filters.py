@@ -5,7 +5,7 @@ OpenCV's `GaussianBlur` smooths every Farneback pyramid level
 (optflowgf: sigma = (1/scale - 1)*0.5) and `blur`-style box sums drive the
 flow refinement (winsize×winsize). Kernels here are tiny (3–19 taps), so
 instead of conv layouts each tap is a shifted slice of the padded array and
-the accumulation is k fused multiply-adds on the VPU — XLA fuses the whole
+the accumulation is k fused multiply-adds — XLA fuses the whole
 chain into one HBM pass.
 
 Summation order matches OpenCV's symmetric filters

@@ -6,10 +6,10 @@ histograms (`ColorHistograms/ColorHistograms.py:32-36`,
 (`FirstImageSearchEngine/rgbhistogram.py:8-13`), and the histogram-distance
 survey (`compare-histograms/comphis.py:27-40`).
 
-TPU-native design: a d-dimensional histogram maps pixels to flat bin ids
-and counts them — via a one-hot reduction (MXU-friendly, scatter-free)
-when n_pixels × n_bins is small, or a device scatter-add for large
-images where the one-hot intermediate would blow past VMEM/HBM budgets.
+Design: a d-dimensional histogram maps pixels to flat bin ids and counts
+them — via a one-hot reduction (matmul-shaped, scatter-free) when
+n_pixels × n_bins is small, or a device scatter-add for large images where
+the one-hot intermediate would blow past the device memory budget.
 Both orders produce bitwise-identical counts (integer-valued f32 sums).
 Masked variants zero the contribution of masked pixels.
 """
@@ -49,7 +49,7 @@ def calc_hist(
         valid &= mask.astype(bool)
     # Two bitwise-identical accumulators (counts are integer-valued and
     # < 2^24, exact in f32 in any order):
-    #   * one-hot matmul-style reduction — MXU-friendly, but materializes
+    #   * one-hot matmul-style reduction — scatter-free, but materializes
     #     [n_pixels, flat_bins] f32 if XLA fails to fuse it (a 720p 3-D
     #     hist would be >1 GB; measured 17 GB of kernel-time page churn
     #     on the 25-image CBIR index before the gate existed);

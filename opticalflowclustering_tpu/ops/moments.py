@@ -5,10 +5,10 @@ Reference call sites: Hu moments demo
 (`Pokedex/pyimagesearch/zernikemoments.py:10-12`, mahotas
 `zernike_moments(image, radius, degree=8)`).
 
-TPU-native: raw moments are weighted reductions against precomputed
+On the device, raw moments are weighted reductions against precomputed
 coordinate-power grids; Zernike is a single [P, K] basis matmul where the
 basis (radial polynomials × angular phases over the disk) is built once at
-trace time — the whole descriptor is one MXU contraction per image.
+trace time — the whole descriptor is one matmul per image.
 """
 
 from __future__ import annotations

@@ -4,10 +4,10 @@ Reference call sites: barcode localization's closing + erode/dilate series
 (`detect-barcodes/detect_barcode.py:22-25`), skin-mask cleanup with an
 elliptical kernel (`skin-detection/skindetector.py:29-31`).
 
-TPU-native: min/max window reductions. Rectangular kernels decompose into
+On the device: min/max window reductions. Rectangular kernels decompose into
 two separable 1-D `lax.reduce_window` passes; arbitrary kernels (ellipse,
 cross) take one shifted-slice min/max per active kernel cell — still a
-fused VPU chain, no gathers.
+fused elementwise chain, no gathers.
 """
 
 from __future__ import annotations

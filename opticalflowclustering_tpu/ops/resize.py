@@ -1,12 +1,12 @@
-"""cv2-exact bilinear resize as MXU-friendly separable matmuls.
+"""cv2-exact bilinear resize as separable matmuls.
 
 `cv2.resize(..., INTER_LINEAR)` drives the Farneback pyramid (each level is
 resampled from the full-resolution image, OpenCV optflowgf) and the coarse→
 fine flow upsampling. Instead of translating OpenCV's per-row filter loops,
 each axis's interpolation is materialized as a banded [dst, src] weight
 matrix built at trace time (shapes are static), so a resize is two dense
-matmuls that map straight onto the TPU MXU and batch over frames/channels
-for free.
+matmuls that batch over frames/channels for free. Integer-ratio axes (the
+pyramid's 2^k steps) take exact slice-based taps instead.
 """
 
 from __future__ import annotations

@@ -1,11 +1,11 @@
 """SLIC superpixels (`SLIC-Superpixel/slic.py:14-15`, skimage
 `slic(image, n_segments, sigma)` + `mark_boundaries`).
 
-TPU-native formulation of SLIC (Achanta et al. 2012 — localized k-means in
+Data-parallel formulation of SLIC (Achanta et al. 2012 — localized k-means in
 LABXY space): cluster centers start on a √K×√K grid; each pixel considers
 only the 3×3 neighborhood of grid clusters (the 2S-window locality rule),
 so the assignment is a static 9-way gather + argmin, and the center update
-is one one-hot matmul on the MXU. Everything is static-shape and jittable;
+is one one-hot matmul. Everything is static-shape and jittable;
 iterations unroll via `lax.fori_loop`.
 """
 
@@ -102,7 +102,8 @@ def slic(
         onehot = jax.nn.one_hot(labels.ravel(), k, dtype=f32)  # [HW, K]
         counts = jnp.sum(onehot, axis=0)
         sums = jnp.dot(
-            onehot.T, feats.reshape(-1, 5), preferred_element_type=f32
+            onehot.T, feats.reshape(-1, 5), preferred_element_type=f32,
+            precision=jax.lax.Precision.HIGHEST,
         )
         return sums / jnp.maximum(counts[:, None], 1.0)
 

@@ -4,7 +4,7 @@ SSIM follows scikit-image's `structural_similarity` defaults for uint8
 inputs (the reference's `ssim(imageA, imageB)` call): 7×7 uniform window,
 sample-covariance normalization N/(N-1), data_range 255, K1=0.01, K2=0.03,
 border-cropped mean. Windowed means are separable box filters — one fused
-VPU pass per statistic.
+elementwise pass per statistic.
 """
 
 from __future__ import annotations

@@ -8,7 +8,7 @@ Reference call sites: `DocumentScanner/pyimagesearch/transform.py:5-64`
 
 Implementation: inverse-mapping bilinear sampling. The sample gather is the
 one irreducibly gather-shaped op in the library; rows/cols are gathered
-separately (two 1-D gathers beat one 2-D gather on TPU tiling).
+separately as two 1-D gathers.
 """
 
 from __future__ import annotations

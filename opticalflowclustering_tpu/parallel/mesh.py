@@ -1,8 +1,8 @@
 """Device-mesh construction.
 
 The reference has no distributed layer at all (SURVEY.md §2.4 — a single
-Python process); scale-out here is the TPU-native design: a
-`jax.sharding.Mesh` over ICI with XLA collectives, axes named for the
+Python process); scale-out here is a `jax.sharding.Mesh` with XLA
+collectives (NCCL between GPUs), axes named for the
 parallelism they carry:
 
   dp — across videos (embarrassingly parallel)

@@ -1,23 +1,23 @@
-"""Multi-host (DCN) scale-out: `jax.distributed` initialization and
+"""Multi-host scale-out: `jax.distributed` initialization and
 cross-host work partitioning for the multi-video queue.
 
 SURVEY.md §2.4/§5 call for the reference's (nonexistent) comm layer to be
-rebuilt TPU-natively as XLA collectives over ICI *within* a pod plus
-`jax.distributed` over DCN *across* hosts. Intra-pod sharding lives in
+rebuilt as XLA collectives *within* a host plus `jax.distributed` over
+the network *across* hosts. Intra-host sharding lives in
 parallel/temporal.py / parallel/spatial.py; this module adds the across-
 hosts story:
 
   * `initialize(...)` — one-call `jax.distributed.initialize` wrapper
     (coordinator address, process count/id from args or the standard env
-    vars) after which `jax.devices()` spans every host's chips and any
-    Mesh built from them rides DCN between hosts automatically.
+    vars) after which `jax.devices()` spans every host's devices and any
+    Mesh built from them communicates between hosts automatically.
   * `host_shard(...)` — deterministic partition of a video list across
     processes: each host decodes and processes only its own videos (media
-    I/O stays host-local; nothing ships raw frames over DCN — the SURVEY
+    I/O stays host-local; nothing ships raw frames between hosts — the SURVEY
     §7 step-7 fan-out design).
   * `global_mesh(...)` — a dp×sp Mesh over all global devices, dp-major
-    across hosts so each video's temporal halo ppermutes stay on one
-    host's ICI and only whole-video data parallelism crosses DCN.
+    across hosts so each video's temporal halo ppermutes stay inside one
+    host and only whole-video data parallelism crosses hosts.
 
 tests/test_multihost.py exercises the real thing: it spawns two OS
 processes, each `initialize`s into a 2-process CPU cluster, builds the
@@ -42,9 +42,9 @@ def initialize(
     """`jax.distributed.initialize` with env-var fallbacks.
 
     Args default to JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES /
-    JAX_PROCESS_ID (the recipe documented in docs/ARCHITECTURE.md). On TPU
-    pods the args can all be None and JAX discovers them from the TPU
-    metadata; on CPU/GPU clusters they are required."""
+    JAX_PROCESS_ID (the recipe documented in docs/ARCHITECTURE.md). With
+    none of them given, JAX's own cluster auto-detection decides; on
+    CPU/GPU clusters without a scheduler they are required."""
     kwargs = {}
     addr = coordinator_address or os.environ.get("JAX_COORDINATOR_ADDRESS")
     if addr:
@@ -78,7 +78,7 @@ def global_mesh(sp: int | None = None, axis_names=("dp", "sp")) -> Mesh:
     jax.devices() orders devices process-major, so reshaping to
     (n_global // sp, sp) keeps each sp group (the temporal-halo ring)
     within one process/host whenever sp divides the per-host device count —
-    ppermute halos ride ICI, only dp crosses DCN."""
+    ppermute halos stay inside a host, only dp crosses hosts."""
     devs = jax.devices()
     if sp is None:
         sp = jax.local_device_count()

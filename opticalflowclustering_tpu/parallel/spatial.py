@@ -62,7 +62,7 @@ from opticalflowclustering_tpu.flow.farneback import (
     _BORDER_SCALE,
     FarnebackParams,
     _m_build,
-    _poly_exp_consts,  # noqa: F401  (re-exported for kernel parity checks)
+    _warp_gather,
     poly_expansion,
     pyramid_plan,
 )
@@ -168,39 +168,6 @@ def _taper_cols(w: int) -> np.ndarray:
     return ramp
 
 
-def _warp_gather_ext(r1_ext: jnp.ndarray, y1_loc, x1c, fx, fy) -> jnp.ndarray:
-    """Bilinear warp sampling an extended source block: identical corner
-    packing to flow.farneback._warp_gather, but the output grid ([..., Hm, W])
-    is smaller than the source ([..., He, W]) and `y1_loc` indexes the
-    extended block's rows."""
-    he, w, c = r1_ext.shape[-3], r1_ext.shape[-2], r1_ext.shape[-1]
-    hm = y1_loc.shape[-2]
-    lead = r1_ext.shape[:-3]
-    b = int(np.prod(lead)) if lead else 1
-    right = jnp.concatenate(
-        [r1_ext[..., :, 1:, :], r1_ext[..., :, -1:, :]], axis=-2
-    )
-    down = jnp.concatenate(
-        [r1_ext[..., 1:, :, :], r1_ext[..., -1:, :, :]], axis=-3
-    )
-    downright = jnp.concatenate(
-        [down[..., :, 1:, :], down[..., :, -1:, :]], axis=-2
-    )
-    packed = jnp.concatenate([r1_ext, right, down, downright], axis=-1)
-    pf = packed.reshape(b * he * w, 4 * c)
-    boff = (jnp.arange(b, dtype=jnp.int32) * (he * w)).reshape((b,) + (1,) * 2)
-    base = ((y1_loc * w + x1c).reshape(b, hm, w) + boff).reshape(-1)
-    g = jnp.take(pf, base, axis=0).reshape(lead + (hm, w, 4, c))
-    fxe = fx[..., None]
-    fye = fy[..., None]
-    return (
-        g[..., 0, :] * (1 - fxe) * (1 - fye)
-        + g[..., 1, :] * fxe * (1 - fye)
-        + g[..., 2, :] * (1 - fxe) * fye
-        + g[..., 3, :] * fxe * fye
-    )
-
-
 def _update_matrices_ext(
     r0_m: jnp.ndarray,
     r1_ext: jnp.ndarray,
@@ -237,7 +204,7 @@ def _update_matrices_ext(
     x1c = jnp.clip(x1i, 0, w - 2)
     # global row -> extended-block row; clamp into the exchanged halo.
     y1_loc = jnp.clip(y1i - row0 + ext_top, 0, r1_ext.shape[-3] - 2)
-    r1w = _warp_gather_ext(r1_ext, y1_loc, x1c, fx, fy)
+    r1w = _warp_gather(r1_ext, y1_loc, x1c, fx, fy)
     r0c = tuple(r0_m[..., c] for c in range(5))
     r1wc = tuple(r1w[..., c] for c in range(5))
     return jnp.stack(_m_build(r0c, r1wc, dx, dy, inb, taper_m), axis=-1)
@@ -517,10 +484,6 @@ def _spatial_farneback_fn(
         mesh=mesh,
         in_specs=(spec, spec),
         out_specs=flow_spec,
-        # check_vma rejects pallas_call outputs (no vma on the kernel's
-        # ShapeDtypeStruct); the exact/fast warp paths run Pallas inside
-        # this shard_map on real TPUs.
-        check_vma=False,
     )
     return jax.jit(sharded)
 
@@ -604,7 +567,7 @@ def _spatial_hue_fn(
         mag, _ = cart_to_polar(flow_loc[..., 0], flow_loc[..., 1])
         # Per-frame GLOBAL min-max (the reference's NORM_MINMAX,
         # `computeOpticalFlowModule.py:31`) as shard-local reductions +
-        # pmin/pmax over ICI — SURVEY §5's "cross-shard reduction in the
+        # pmin/pmax collectives — SURVEY §5's "cross-shard reduction in the
         # middle of an otherwise local kernel chain". min/max are exactly
         # associative, so the range is bitwise the unsharded one.
         smin = jax.lax.pmin(
@@ -634,7 +597,9 @@ def _spatial_hue_fn(
         mesh=mesh,
         in_specs=(spec, spec),
         out_specs=(P(), P(), P(), P()),  # replicated post-gather outputs
-        check_vma=False,  # Pallas warp kernels run inside on real TPUs
+        # The replication check cannot infer that values computed from the
+        # all_gather'd frame are replicated.
+        check_vma=False,
     )
     return jax.jit(sharded)
 

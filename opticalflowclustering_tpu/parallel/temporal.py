@@ -4,7 +4,7 @@ Optical flow couples only adjacent frames (t-1, t) — the reference carries
 one `prev_gray` frame of state (`computeOpticalFlowModule.py:34`). Sharding
 a video's N frames into contiguous blocks across chips therefore needs a
 single-frame halo: each chip ships its *first* grayscale frame to its left
-neighbor over ICI (`jax.lax.ppermute`), computes its local frame pairs, and
+neighbor (`jax.lax.ppermute`), computes its local frame pairs, and
 every later stage (render, grid pooling, clustering) is purely local. This
 is the sequence-parallel analogue for this workload (SURVEY.md §5
 'long-context').
@@ -37,7 +37,7 @@ from opticalflowclustering_tpu.ops.polar import magnitude
 
 def _halo_pairs(gray_local: jnp.ndarray, axis_name: str):
     """[n_loc, H, W] local frames → (prev, next) [n_loc, H, W] pairs using a
-    1-frame halo from the right neighbor (ring ppermute over ICI)."""
+    1-frame halo from the right neighbor (ring ppermute)."""
     n_dev = jax.lax.axis_size(axis_name)
     first = gray_local[:1]
     # send my first frame to my LEFT neighbor (i → i-1)
@@ -60,10 +60,6 @@ def _temporal_shard_flow_fn(mesh: Mesh, axis_name: str, params: FarnebackParams)
         mesh=mesh,
         in_specs=P(axis_name),
         out_specs=P(axis_name),
-        # check_vma chokes on pallas_call outputs (no vma on the kernel's
-        # ShapeDtypeStruct) — the real-TPU 'fast'/'exact' warp path runs
-        # Pallas inside this shard_map, so the check must be off.
-        check_vma=False,
     )
     def step(frames_local):
         gray = bgr2gray(frames_local)
@@ -98,7 +94,6 @@ def _sharded_hue_pipeline_fn(
         mesh=mesh,
         in_specs=P(axis_name),
         out_specs=(P(axis_name), P(axis_name), P(axis_name)),
-        check_vma=False,  # Pallas warp kernels run inside on real TPUs
     )
     def step(frames_local):
         gray = bgr2gray(frames_local)
@@ -153,7 +148,6 @@ def _sharded_hue_pipeline_videos_fn(
             P(dp_axis, sp_axis),
             P(dp_axis, sp_axis),
         ),
-        check_vma=False,  # Pallas warp kernels run inside on real TPUs
     )
     def step(videos_local):  # [b_loc, n_loc, H, W, 3]
         gray = bgr2gray(videos_local)
@@ -185,7 +179,7 @@ def sharded_hue_pipeline_videos(
 ):
     """dp×sp-sharded flagship pipeline over a BATCH of videos
     [B, N, H, W, 3]u8: videos sharded across `dp_axis`, each video's frame
-    axis across `sp_axis` (1-frame ring halo over ICI). Returns
+    axis across `sp_axis` (1-frame ring halo). Returns
     (hue [B, N, cells], rgb_hue [B, N, cells],
     centroids [B, N, cells, 4] int32 RGBA — the per-cell `-f`/addnew rows
     the reference's fused run appends, `KmeanGrids.py:320-339`,

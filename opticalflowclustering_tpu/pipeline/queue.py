@@ -127,7 +127,7 @@ def process_video_queue_dp(
     this host's dp rows via `multihost.local_submesh`, so decoded frames
     (host-local numpy) feed an all-addressable-device jit — legal
     single-controller dispatch, no global-array assembly — and NOTHING
-    crosses DCN during video processing (sp halos ride each host's ICI;
+    crosses hosts during video processing (sp halos stay inside a host;
     hosts are independent by construction). Each process returns
     VideoResults for its own share only; artifacts land on the (shared)
     filesystem under `out_dir`, so resume works across runs regardless of

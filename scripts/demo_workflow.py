@@ -18,7 +18,7 @@ the reference tree:
      `601_3_3_cropped.csv`; reference: findCosineDifferentVectors.py,
      `README.md:7`).
 
-Everything runs headless; artifacts land in --workdir. Works on the TPU
+Everything runs headless; artifacts land in --workdir. Works on the GPU
 (default) or CPU (--cpu).
 """
 

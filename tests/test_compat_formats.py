@@ -92,3 +92,82 @@ def test_outcsv_serialization_bytes():
     assert got[0] == want[0]
     assert got[1] == want[1]
     assert len(got) == len(want)
+
+
+def _pandas_bytes(tmp_path, name, frame_fn):
+    pd = pytest.importorskip("pandas")
+    path = tmp_path / name
+    frame_fn(pd, path)
+    return path.read_bytes()
+
+
+@pytest.mark.parametrize("writer", ["hue", "rgb_values", "optical_flow"])
+def test_writers_match_pandas_to_csv_bytes(tmp_path, writer):
+    """The standard-library writers reproduce pandas' `to_csv` bytes,
+    float repr and NaN-as-empty included."""
+    from opticalflowclustering_tpu.compat import writers
+
+    rng = np.random.default_rng(0)
+    cols = [f"cell_{i}" for i in range(7)]
+    if writer == "hue":
+        table = rng.integers(0, 180, (5, 7))
+        writers.write_hue_table_csv(str(tmp_path / "a.csv"), table)
+        want = _pandas_bytes(tmp_path, "b.csv", lambda pd, p: pd.DataFrame(
+            table.astype(np.int64), columns=cols).to_csv(p, index=False))
+    elif writer == "rgb_values":
+        table = np.concatenate([
+            rng.random((3, 7)) * 180,
+            [[0.0, 12.0, 1e-7, 1e17, np.nan, 179.5, 3.0]],
+        ])
+        writers.write_rgb_values_csv(str(tmp_path / "a.csv"), table)
+        want = _pandas_bytes(tmp_path, "b.csv", lambda pd, p: pd.DataFrame(
+            table, columns=cols).to_csv(p, index=False))
+    else:
+        mags = np.concatenate([rng.random(6) * 3, [0.0, 1e-9]])
+        mags = np.concatenate([mags, np.float32([0.1])])
+        writers.write_optical_flow_csv(str(tmp_path / "a.csv"), mags)
+        want = _pandas_bytes(tmp_path, "b.csv", lambda pd, p: pd.DataFrame({
+            "Frame": np.arange(len(mags)),
+            "Average Magnitude": mags.astype(np.float64),
+        }).to_csv(p))
+    assert (tmp_path / "a.csv").read_bytes() == want
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.mark.parametrize("artifact", ["OutCSV/601_3.csv", "601_3.avi_opticalFlow.csv"])
+def test_writers_reproduce_committed_demo_artifacts(tmp_path, artifact):
+    """Re-reading a committed demo_out table and writing it again gives the
+    committed bytes back."""
+    import csv
+
+    from opticalflowclustering_tpu.compat import writers
+
+    src = os.path.join(REPO, "demo_out", artifact)
+    with open(src, newline="") as f:
+        rows = list(csv.reader(f))
+    out = tmp_path / "x.csv"
+    if artifact.startswith("OutCSV"):
+        writers.write_hue_table_csv(str(out), np.array(rows[1:], np.int64))
+    else:
+        mags = np.array([float(r[2]) for r in rows[1:]])
+        writers.write_optical_flow_csv(str(out), mags)
+    assert out.read_bytes() == open(src, "rb").read()
+
+
+def test_findcosine_cli_reads_csv_without_pandas(tmp_path, capsys):
+    from opticalflowclustering_tpu.cli import findcosine
+
+    rng = np.random.default_rng(2)
+    series = rng.integers(0, 180, 40)
+    sig = series[25:31]
+    for name, vals in (("sig.csv", sig), ("ser.csv", series)):
+        (tmp_path / name).write_text(
+            "".join(f"{i},{v}\n" for i, v in enumerate(vals)) + "\n"
+        )
+    findcosine.main([str(tmp_path / "sig.csv"), str(tmp_path / "ser.csv")])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[0].split(":")[1].split() == ["6", "40"]
+    assert float(lines[1].split(":")[1]) == pytest.approx(1.0, abs=1e-6)
+    assert int(lines[3].split(":")[1]) == 25

@@ -1,4 +1,4 @@
-"""Multi-host (DCN) path: two real OS processes form a jax.distributed
+"""Multi-host path: two real OS processes form a jax.distributed
 cluster on the CPU backend, build a global mesh spanning both, and run a
 collective + the dp-sharded flagship pipeline across processes.
 

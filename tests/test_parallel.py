@@ -181,5 +181,5 @@ def test_initialize_env_fallbacks(monkeypatch):
     monkeypatch.delenv("JAX_COORDINATOR_ADDRESS")
     monkeypatch.delenv("JAX_NUM_PROCESSES")
     monkeypatch.delenv("JAX_PROCESS_ID")
-    multihost.initialize()  # TPU-pod style: everything auto-discovered
+    multihost.initialize()  # no args: JAX auto-detects the cluster
     assert seen == {}

@@ -146,12 +146,9 @@ def test_kmeangrids_cli_video_path_writes_addnew_rows(tmp_path):
         process_frames,
     )
     from opticalflowclustering_tpu.features.grid import GridParams
-    from opticalflowclustering_tpu.flow.farneback import FarnebackParams
 
     dec = read_video_bgr(vid)
-    out = process_frames(
-        dec, PipelineConfig(flow=FarnebackParams(warp_mode="fast"))
-    )
+    out = process_frames(dec, PipelineConfig())
     cen, _ = dominant_hue_k1_frames(out["flow_bgr"], GridParams(), rb_swap=True)
     cen = np.asarray(cen).reshape(-1, 4)
     got_cen = np.array(

@@ -127,11 +127,7 @@ def _check_hues(got, want, saturation, tag, min_exact=0.97):
     )
 
 
-@pytest.mark.parametrize("warp_mode", ["fast", "fast16", "exact"])
-def test_full_video_path_matches_reference_on_real_footage(
-    real_clip, warp_mode
-):
-    from opticalflowclustering_tpu.flow.farneback import FarnebackParams
+def test_full_video_path_matches_reference_on_real_footage(real_clip):
     from opticalflowclustering_tpu.pipeline.bounce import (
         PipelineConfig,
         process_frames,
@@ -140,10 +136,7 @@ def test_full_video_path_matches_reference_on_real_footage(
     path, frames = real_clip
     want_hue, want_rgb, out_sat, rgb_sat = reference_reenactment(frames)
 
-    cfg = PipelineConfig(
-        chunk=4, emit_flow_bgr=True,
-        flow=FarnebackParams(warp_mode=warp_mode),
-    )
+    cfg = PipelineConfig(chunk=4, emit_flow_bgr=True)
     out = process_frames(frames, cfg)
 
     # Bounded-noise invariant: per-cell means of our flow render vs the

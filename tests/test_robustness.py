@@ -60,20 +60,18 @@ def test_single_pair_video():
 
 def test_extreme_motion_does_not_nan():
     """A hard cut (uncorrelated frames) drives the solver to its spike
-    regime — the reach masks and out-of-image fallback must keep every
-    output finite."""
+    regime — the out-of-image fallback must keep every output finite."""
     rng = np.random.default_rng(1)
     a = rng.integers(0, 256, (64, 96, 3), dtype=np.uint8)
     b = rng.integers(0, 256, (64, 96, 3), dtype=np.uint8)
     frames = np.stack([a, b, a, b])
-    for mode in ("fast", "exact"):
-        out = process_frames(
-            frames,
-            PipelineConfig(
-                chunk=3,
-                grid=GridParams(4, 5),
-                flow=FarnebackParams(levels=1, warp_mode=mode),
-                emit_flow_bgr=False,
-            ),
-        )
-        _check(out, 3)
+    out = process_frames(
+        frames,
+        PipelineConfig(
+            chunk=3,
+            grid=GridParams(4, 5),
+            flow=FarnebackParams(levels=1),
+            emit_flow_bgr=False,
+        ),
+    )
+    _check(out, 3)
